@@ -1,4 +1,4 @@
-// tomosar_native: C++ host-runtime kernels for the TPU framework's data path.
+// tomosar_native: C++ host-runtime kernels for the framework's data path.
 //
 // The reference offloads its host hot loops to third-party native code
 // (laspy's numpy internals, rasterio/GDAL, open3d; SURVEY.md §2.2). Here the
@@ -212,7 +212,7 @@ void ts_blend_accumulate(double* dsm, double* weight, int64_t H, int64_t W,
 }
 
 // ---------------------------------------------------------------------------
-// Batched, THREADED blend accumulation (VERDICT r02 item 2): one call blends a
+// Batched, THREADED blend accumulation: one call blends a
 // whole batch of patches. Threads partition the SCENE raster into horizontal
 // bands — sliding-window patches overlap each other, so parallelizing over
 // patches would race on the += of shared pixels; disjoint scene bands cannot.
@@ -261,73 +261,7 @@ void ts_blend_accumulate_batch(double* dsm, double* weight, int64_t H, int64_t W
   for (auto& th : threads) th.join();
 }
 
-// ---------------------------------------------------------------------------
-// Chunk-aligned Morton tile layout — the fused chunk-grid kernels' input
-// contract (parity: ops/sorted_scatter.py host_morton_bucket_aligned,
-// bit-identical including the stable within-cell point order of numpy's
-// stable argsort). pts is (n, 3) float32 normalized coords; mask (n) uint8.
-// Caller allocates out_pts (npad, 3) f32, out_mask (npad) uint8, out_cells
-// (npad) int32, out_toff (ntiles + 1) int32. Returns used rows
-// (== out_toff[ntiles]), or -1 if the layout would overflow npad.
-int64_t ts_morton_align(const float* pts, const uint8_t* mask, int64_t n,
-                        int32_t reso, int32_t chunk, int32_t tile_cells,
-                        int64_t npad, int32_t pad_cell_sentinel,
-                        float* out_pts, uint8_t* out_mask,
-                        int32_t* out_cells, int32_t* out_toff) {
-  int bits = 0;
-  while ((int64_t{1} << (bits + 1)) <= reso) ++bits;  // reso = 2^bits
-  const int64_t ncell = static_cast<int64_t>(reso) * reso;
-  const int64_t ntiles = ncell / tile_cells;
-
-  std::vector<int32_t> code(static_cast<size_t>(n));
-  std::vector<int64_t> cell_count(static_cast<size_t>(ncell), 0);
-  for (int64_t i = 0; i < n; ++i) {
-    if (!mask[i]) { code[i] = -1; continue; }
-    // f32 multiply then truncation toward zero, clip — matches the host
-    // numpy and the device morton_cells_device quantization bit-exactly
-    int64_t xi = static_cast<int64_t>(pts[i * 3] * static_cast<float>(reso));
-    int64_t yi = static_cast<int64_t>(pts[i * 3 + 1] * static_cast<float>(reso));
-    xi = std::min(std::max(xi, int64_t{0}), int64_t{reso - 1});
-    yi = std::min(std::max(yi, int64_t{0}), int64_t{reso - 1});
-    int32_t c = 0;
-    for (int b = 0; b < bits; ++b) {
-      c |= static_cast<int32_t>(((xi >> b) & 1) << (2 * b));
-      c |= static_cast<int32_t>(((yi >> b) & 1) << (2 * b + 1));
-    }
-    code[i] = c;
-    ++cell_count[c];
-  }
-  for (int64_t i = 0; i < npad; ++i) {
-    out_pts[i * 3] = 0.5f; out_pts[i * 3 + 1] = 0.5f; out_pts[i * 3 + 2] = 0.5f;
-    out_mask[i] = 0; out_cells[i] = pad_cell_sentinel;
-  }
-  // per-tile chunk-padded starts + running per-cell write cursors
-  std::vector<int64_t> cell_pos(static_cast<size_t>(ncell));
-  int64_t astart = 0;
-  for (int64_t t = 0; t < ntiles; ++t) {
-    out_toff[t] = static_cast<int32_t>(astart);
-    int64_t pos = astart, cnt = 0;
-    for (int64_t c = t * tile_cells; c < (t + 1) * tile_cells; ++c) {
-      cell_pos[c] = pos; pos += cell_count[c]; cnt += cell_count[c];
-    }
-    astart += ((cnt + chunk - 1) / chunk) * chunk;
-    if (astart > npad) return -1;
-  }
-  out_toff[ntiles] = static_cast<int32_t>(astart);
-  // stable scatter: original order within each cell == numpy stable argsort
-  for (int64_t i = 0; i < n; ++i) {
-    if (code[i] < 0) continue;
-    const int64_t d = cell_pos[code[i]]++;
-    out_pts[d * 3] = pts[i * 3];
-    out_pts[d * 3 + 1] = pts[i * 3 + 1];
-    out_pts[d * 3 + 2] = pts[i * 3 + 2];
-    out_mask[d] = 1;
-    out_cells[d] = code[i];
-  }
-  return astart;
-}
-
 // version tag for the loader's staleness check
-const char* ts_version() { return "tomosar_native 3"; }
+const char* ts_version() { return "tomosar_native 4"; }
 
 }  // extern "C"

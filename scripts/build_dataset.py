@@ -4,7 +4,7 @@
     python scripts/build_dataset.py dataset=berlin [--overwrite] [key=value ...]
 
 Composes the same config tree as train.py/test.py; the library implementation
-is tomosar2height_tpu/data/builder.py.
+is tomosar2height_jax/data/builder.py.
 """
 
 from __future__ import annotations
@@ -15,10 +15,10 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.config import compose  # noqa: E402
-from tomosar2height_tpu.config.compose import default_conf_dir  # noqa: E402
-from tomosar2height_tpu.data import build_dataset  # noqa: E402
-from tomosar2height_tpu.utils import setup_logging  # noqa: E402
+from tomosar2height_jax.config import compose  # noqa: E402
+from tomosar2height_jax.config.compose import default_conf_dir  # noqa: E402
+from tomosar2height_jax.data import build_dataset  # noqa: E402
+from tomosar2height_jax.utils import setup_logging  # noqa: E402
 
 
 def main():

@@ -15,7 +15,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo.cloud import load_pc  # noqa: E402
+from tomosar2height_jax.geo.cloud import load_pc  # noqa: E402
 
 
 def robust_z_std(points: np.ndarray) -> float:

@@ -3,8 +3,7 @@
 Each of N processes owns 4 virtual CPU devices; together they form one global
 8-device data-parallel mesh. The worker assembles its local batch shard into a
 global array (shard_batch's multi-process path), reduces it with a jitted
-replicated-output sum (GSPMD inserts the cross-process collective over the
-'DCN' transport), and prints the global result — every process must print the
+replicated-output sum (GSPMD inserts the cross-process collective), and prints the global result — every process must print the
 same number, proving the mesh, sharding, and collective span processes.
 
 Usage: dist_worker_smoke.py <process_id> <num_processes> <coordinator>
@@ -22,7 +21,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from tomosar2height_tpu.parallel import (  # noqa: E402
+from tomosar2height_jax.parallel import (  # noqa: E402
     init_distributed,
     make_mesh,
     shard_batch,

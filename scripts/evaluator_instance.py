@@ -3,7 +3,7 @@
 
 Capability parity: reference scripts/evaluator_instance.py — raster mode
 (predicted vs GT nDSM under a footprint mask) and the network-free point-cloud
-median baseline. Library implementation: tomosar2height_tpu/infer/instance.py.
+median baseline. Library implementation: tomosar2height_jax/infer/instance.py.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo import RasterReader  # noqa: E402
-from tomosar2height_tpu.geo.cloud import load_pc  # noqa: E402
-from tomosar2height_tpu.infer.instance import buildingwise_errors_georef, pointcloud_median_baseline  # noqa: E402
+from tomosar2height_jax.geo import RasterReader  # noqa: E402
+from tomosar2height_jax.geo.cloud import load_pc  # noqa: E402
+from tomosar2height_jax.infer.instance import buildingwise_errors_georef, pointcloud_median_baseline  # noqa: E402
 
 
 def main():

@@ -20,7 +20,7 @@ from scipy.spatial import ConvexHull
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo.cloud import load_pc, save_las  # noqa: E402
+from tomosar2height_jax.geo.cloud import load_pc, save_las  # noqa: E402
 
 
 def load_obj_vertices(path: str) -> np.ndarray:

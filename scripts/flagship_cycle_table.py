@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Per-LR-cycle summary table of a flagship 10k run (VERDICT r04 item 1b).
+"""Per-LR-cycle summary table of a flagship 10k run.
 
 The reference's production schedule is 10,000 optimizer steps of CyclicLR
 triangular2 with step_size_up=500/down=500 (reference conf/model/
 tomosar2height.yaml:40-44, train.py:97-104) = 10 LR cycles of 1000 steps.
 This digests a run's wandb/metrics.jsonl into one row per cycle — peak LR
 actually reached, train-loss trend, best val L1 (+ iteration), memory
-steadiness — plus the checkpoint files on disk, as the long-horizon
-stability evidence for RESULTS.md.
+steadiness — plus the checkpoint files on disk, as long-horizon
+stability evidence.
 
 Usage:
     python scripts/flagship_cycle_table.py <run_dir> [--cycle 1000]

@@ -3,7 +3,7 @@
 
 Capability parity: reference scripts/interpolate_bilinear.py, interpolate_idw.py,
 interpolate_nearest.py — unified CLI over
-tomosar2height_tpu/infer/baselines.py.
+tomosar2height_jax/infer/baselines.py.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo.cloud import load_pc  # noqa: E402
-from tomosar2height_tpu.infer.baselines import write_interpolated_ndsm  # noqa: E402
+from tomosar2height_jax.geo.cloud import load_pc  # noqa: E402
+from tomosar2height_jax.infer.baselines import write_interpolated_ndsm  # noqa: E402
 
 
 def main():

@@ -17,8 +17,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo import RasterData, RasterWriter  # noqa: E402
-from tomosar2height_tpu.geo.cloud import save_las  # noqa: E402
+from tomosar2height_jax.geo import RasterData, RasterWriter  # noqa: E402
+from tomosar2height_jax.geo.cloud import save_las  # noqa: E402
 
 X0, Y0 = 0.0, 5000000.0
 W, H = 1280, 640  # meters == pixels at 1 m (defaults; --width/--height scale)

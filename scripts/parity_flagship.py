@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""One-off torch-parity run at the FLAGSHIP shape (VERDICT r02 missing #4).
+"""One-off torch-parity run at the FLAGSHIP shape.
 
 The CI harness (tests/test_reference_parity.py) pins forward parity at
 reduced shapes (32^2 plane / depth 4 / 64^2 output). This script runs the
@@ -34,7 +34,7 @@ def main():
 
     import torch
     import jax.numpy as jnp
-    from tomosar2height_tpu.models import TomoSAR2Height
+    from tomosar2height_jax.models import TomoSAR2Height
     import test_reference_parity as harness
 
     # import the reference with the harness's dependency shims

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Training-DYNAMICS parity vs the actual torch reference (VERDICT r03 #2).
+"""Training-DYNAMICS parity vs the actual torch reference.
 
 Forward/grad parity at init (tests/test_reference_parity.py) cannot catch a
 drift in the optimizer/schedule/accumulation interplay. This script drives
@@ -114,9 +114,9 @@ def run_ours(harness, ported_params, patches, val_patches, steps, accum,
     import jax
     import jax.numpy as jnp
 
-    from tomosar2height_tpu.parallel.mesh import make_mesh
-    from tomosar2height_tpu.train.schedule import CyclicLR
-    from tomosar2height_tpu.train.trainer import Trainer
+    from tomosar2height_jax.parallel.mesh import make_mesh
+    from tomosar2height_jax.train.schedule import CyclicLR
+    from tomosar2height_jax.train.trainer import Trainer
 
     model = harness._flax_model(True, False, False)
     trainer = Trainer(model, {"optimize_every": accum,
@@ -217,7 +217,7 @@ def main(argv=None):
     # port INIT weights before the reference trains in place
     import jax.numpy as jnp  # noqa: F401
 
-    from tomosar2height_tpu.utils.torch_port import port_torch_to_flax
+    from tomosar2height_jax.utils.torch_port import port_torch_to_flax
 
     ref = build_reference(harness)
     model = harness._flax_model(True, False, False)

@@ -20,9 +20,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.config import compose  # noqa: E402
-from tomosar2height_tpu.config.compose import default_conf_dir  # noqa: E402
-from tomosar2height_tpu.data import TomoSARDataset  # noqa: E402
+from tomosar2height_jax.config import compose  # noqa: E402
+from tomosar2height_jax.config.compose import default_conf_dir  # noqa: E402
+from tomosar2height_jax.data import TomoSARDataset  # noqa: E402
 
 
 def patch_point_counts(dataset) -> np.ndarray:

@@ -1,14 +1,13 @@
 #!/bin/bash
-# Full-schedule flagship training (VERDICT r03 item 4): the reference's
+# Full-schedule flagship training: the reference's
 # 10,000-optimizer-step CyclicLR schedule (conf/model/tomosar2height.yaml:40-44)
-# run end-to-end on the bench city with the production fast path (fused2
-# chunk-grid kernels, bf16 trunk, det_stream checkpointed patch stream).
+# run end-to-end on the bench city with the production path (plain XLA
+# scatters, bf16 trunk, det_stream checkpointed patch stream).
 #
 # Step size: batch 8 x optimize_every 2 = 16 patches/optimizer step (the
-# reference's 64-patch step at 10k steps is ~7h on one chip; this runs the
-# FULL schedule — all 10 triangular2 LR cycles, every checkpoint/val/vis
-# cadence — in ~2h. Throughput at the 64-patch step is pinned separately by
-# bench.py --train).
+# reference's 64-patch step is 4x the work per step; this runs the FULL
+# schedule — all 10 triangular2 LR cycles, every checkpoint/val/vis cadence.
+# Throughput is measured separately by bench.py --train).
 #
 # Invocations resume from the latest checkpoint, so job timeouts double as
 # the kill-and-resume evidence (det_stream makes the resume bit-consistent —
@@ -36,7 +35,6 @@ dataset.mask_files.type=$ROOT/raster/building_class.tif \
 dataset.satellite_image.folder=$ROOT/raster \
 use_cloud=true use_image=false use_footprint=false \
 dataset.points.train_bucket=16384 dataset.points.bucket_sizes=[16384] \
-dataset.points.sort=true model.encoder_kwargs.sorted_impl=fused2 \
 training.out_dir=$OUT run_suffix=-flagship10k \
 training.batch_size=8 training.optimize_every=2 training.max_iteration=10000 \
 training.validate_every=100 training.checkpoint_every=100 \

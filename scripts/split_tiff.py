@@ -15,7 +15,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.geo import RasterData, RasterReader, RasterWriter  # noqa: E402
+from tomosar2height_jax.geo import RasterData, RasterReader, RasterWriter  # noqa: E402
 
 
 def _write_window(src: RasterReader, r0: int, r1: int, c0: int, c1: int, out_path: str):
@@ -23,7 +23,7 @@ def _write_window(src: RasterReader, r0: int, r1: int, c0: int, c1: int, out_pat
     rd = RasterData()
     x, y = src.T * (c0, r0)  # top-left corner of the window
     rd.pixel_size = src.pixel_size
-    from tomosar2height_tpu.geo.transform import Affine
+    from tomosar2height_jax.geo.transform import Affine
 
     rd.T = Affine(src.T.a, src.T.b, x, src.T.d, src.T.e, y)
     rd.T_inv = ~rd.T

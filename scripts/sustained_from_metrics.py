@@ -4,8 +4,7 @@
 Computes patches/s over the full trail and over "quiet" windows (iterations
 with no validation/checkpoint/visualize work, i.e. aux < 1 s), plus the
 phase-timer medians — the reconciliation between `bench.py --train`
-(isolated, upload-cached compute) and what the shipped train.py sustains
-(VERDICT r04 items 1/4).
+(isolated, upload-cached compute) and what the shipped train.py sustains.
 
 Usage:
     python scripts/sustained_from_metrics.py <run_dir_or_metrics.jsonl> \

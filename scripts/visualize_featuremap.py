@@ -2,7 +2,7 @@
 """PCA-project saved feature-map pickles to turbo-colormap PNGs.
 
 Capability parity: reference scripts/visualize_featuremap.py:1-48, consuming
-pickles produced by tomosar2height_tpu.utils.introspect.save_feature_maps
+pickles produced by tomosar2height_jax.utils.introspect.save_feature_maps
 (the flax capture_intermediates equivalent of the reference's debug forwards).
 """
 
@@ -20,7 +20,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tomosar2height_tpu.utils.introspect import load_feature_maps  # noqa: E402
+from tomosar2height_jax.utils.introspect import load_feature_maps  # noqa: E402
 
 
 def pca_project(fmap: np.ndarray) -> np.ndarray:

@@ -16,13 +16,13 @@ import sys
 import jax
 import numpy as np
 
-from tomosar2height_tpu.config import compose
-from tomosar2height_tpu.config.compose import default_conf_dir
-from tomosar2height_tpu.data import PatchLoader, TomoSARDataset, tile_cells_for_impl
-from tomosar2height_tpu.infer import DSMEvaluator, DSMGenerator, print_statistics
-from tomosar2height_tpu.models import build_model
-from tomosar2height_tpu.train import CheckpointIO, DEFAULT_MODEL_FILE
-from tomosar2height_tpu.utils import enable_compile_cache, lock_seed, setup_logging
+from tomosar2height_jax.config import compose
+from tomosar2height_jax.config.compose import default_conf_dir
+from tomosar2height_jax.data import PatchLoader, TomoSARDataset
+from tomosar2height_jax.infer import DSMEvaluator, DSMGenerator, print_statistics
+from tomosar2height_jax.models import build_model
+from tomosar2height_jax.train import CheckpointIO, DEFAULT_MODEL_FILE
+from tomosar2height_jax.utils import enable_compile_cache, lock_seed, setup_logging
 
 log = logging.getLogger("test")
 
@@ -32,7 +32,7 @@ def main(overrides=None):
     cfg_dataset, cfg_training, cfg_test, cfg_dsm = (
         cfg["dataset"], cfg["training"], cfg["test"], cfg["dsm_generation"]
     )
-    from tomosar2height_tpu.utils.cache import select_platform
+    from tomosar2height_jax.utils.cache import select_platform
 
     select_platform(cfg.select("device.platform", None))
 
@@ -58,11 +58,6 @@ def main(overrides=None):
                          cfg_dataset["points"]["bucket_sizes"],
                          fixed_bucket=cfg_dataset["points"]["train_bucket"],
                          sort_reso=sort_reso,
-                         aligned=cfg.select("model.encoder_kwargs.sorted_impl",
-                                            "cumsum") in ("fused", "fused2"),
-                         tile_cells=tile_cells_for_impl(
-                             cfg.select("model.encoder_kwargs.sorted_impl",
-                                        "cumsum")),
                          prefetch=cfg.select("dataloader.prefetch", 2),
                          n_workers=cfg.select("dataloader.n_workers", 0))
     log.info("Dataset path: '%s'", cfg_dataset["path"])
@@ -76,7 +71,8 @@ def main(overrides=None):
         h, w = (int(v) for v in test_dataset._image_patch_shape)
         c = test_dataset.norm_image_data.shape[0]
         init_image = np.zeros((sample["points"].shape[0], h, w, c), np.float32)
-    params = model.init(
+    # jitted: one program instead of one device dispatch per init op
+    params = jax.jit(model.init)(
         jax.random.PRNGKey(0),
         sample["points"] if cfg["use_cloud"] else None,
         sample["point_mask"] if cfg["use_cloud"] else None,
@@ -104,7 +100,7 @@ def main(overrides=None):
     # patch-sharded data-parallel inference over all compatible devices
     import math
 
-    from tomosar2height_tpu.parallel import make_mesh
+    from tomosar2height_jax.parallel import make_mesh
 
     mesh = make_mesh(cfg.select("device.mesh.data", -1))
     g = math.gcd(int(cfg_training["val_batch_size"]), mesh.size)

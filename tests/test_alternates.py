@@ -6,15 +6,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tomosar2height_tpu.models.hourglass import HGFilter
-from tomosar2height_tpu.models.pointnetpp import (
+from tomosar2height_jax.models.hourglass import HGFilter
+from tomosar2height_jax.models.pointnetpp import (
     PointNetPlusPlus,
     farthest_point_sample,
     index_points,
     query_ball_point,
     square_distance,
 )
-from tomosar2height_tpu.utils.introspect import capture_feature_maps, save_feature_maps, load_feature_maps
+from tomosar2height_jax.utils.introspect import capture_feature_maps, save_feature_maps, load_feature_maps
 
 
 class TestPrimitives:
@@ -80,7 +80,7 @@ class TestPointNetPlusPlus:
         assert np.isfinite(np.asarray(out["xy"])).all()
 
     def test_in_model_shell(self):
-        from tomosar2height_tpu.models import TomoSAR2Height
+        from tomosar2height_jax.models import TomoSAR2Height
 
         rng = np.random.default_rng(0)
         pts = jnp.asarray(rng.uniform(0.01, 0.99, (1, 1024, 3)).astype(np.float32))
@@ -109,7 +109,7 @@ class TestHourglass:
         assert np.isfinite(np.asarray(out)).all()
 
     def test_as_image_encoder(self, rng):
-        from tomosar2height_tpu.models import TomoSAR2Height
+        from tomosar2height_jax.models import TomoSAR2Height
 
         img = jnp.asarray(rng.normal(size=(1, 64, 64, 3)).astype(np.float32))
         m = TomoSAR2Height(
@@ -125,7 +125,7 @@ class TestHourglass:
 
 class TestIntrospection:
     def test_capture_and_roundtrip(self, tmp_path, rng):
-        from tomosar2height_tpu.models.unet import UNet
+        from tomosar2height_jax.models.unet import UNet
 
         x = jnp.asarray(rng.normal(size=(1, 16, 16, 4)).astype(np.float32))
         m = UNet(num_classes=4, depth=3, start_filts=4)

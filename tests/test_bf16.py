@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tomosar2height_tpu.geo import normalize_pc, invert_normalize_pc
-from tomosar2height_tpu.models import TomoSAR2Height
+from tomosar2height_jax.geo import normalize_pc, invert_normalize_pc
+from tomosar2height_jax.models import TomoSAR2Height
 
 
 class TestBF16Policy:

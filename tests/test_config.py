@@ -2,8 +2,8 @@
 
 import pytest
 
-from tomosar2height_tpu.config import compose, parse_cli_overrides
-from tomosar2height_tpu.config.compose import default_conf_dir
+from tomosar2height_jax.config import compose, parse_cli_overrides
+from tomosar2height_jax.config.compose import default_conf_dir
 
 
 class TestCompose:

@@ -9,11 +9,11 @@ import yaml
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
-from tomosar2height_tpu.config import compose
-from tomosar2height_tpu.config.compose import default_conf_dir
-from tomosar2height_tpu.data import PatchLoader, TomoSARDataset, build_dataset, pick_bucket
-from tomosar2height_tpu.data.pipeline import pad_points
-from tomosar2height_tpu.geo import RasterReader
+from tomosar2height_jax.config import compose
+from tomosar2height_jax.config.compose import default_conf_dir
+from tomosar2height_jax.data import PatchLoader, TomoSARDataset, build_dataset, pick_bucket
+from tomosar2height_jax.data.pipeline import pad_points
+from tomosar2height_jax.geo import RasterReader
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ class TestDataset:
     def test_normalization_roundtrip(self, city):
         """transform maps normalized points back to world coordinates
         (reference dataset.py:265-275: transform = inv(normalize))."""
-        from tomosar2height_tpu.geo import apply_transform
+        from tomosar2height_jax.geo import apply_transform
 
         cfg, root, _ = city
         ds = TomoSARDataset("vis", cfg["dataset"])
@@ -139,7 +139,7 @@ class TestDataset:
         # fabricate an empty region query by cropping far corner of chunk 1 where
         # density 0.3 still has points; instead test the flag machinery directly
         # (inputs and the spatial index are a paired invariant — replace both)
-        from tomosar2height_tpu.geo.crop import GridIndex2D
+        from tomosar2height_jax.geo.crop import GridIndex2D
 
         chunk = ds.data_dic[ds.dataset_chunk_idx_ls[0]]
         chunk["inputs"] = np.empty((0, 3))

@@ -1,8 +1,8 @@
-"""Multi-process (multi-host scaffolding) smoke test (VERDICT r02 item 6).
+"""Multi-process (multi-host scaffolding) smoke test.
 
 Spawns two REAL OS processes, each with 4 virtual CPU devices, joined by
 ``jax.distributed`` into one 8-device global mesh — the same code path a
-multi-host TPU pod takes over DCN (SURVEY.md §2.3/§5). Verifies:
+multi-host cluster takes (SURVEY.md §2.3/§5). Verifies:
   - init_distributed wires coordinator/process ids,
   - make_mesh spans all global devices,
   - shard_batch assembles per-process local batches into one global array,

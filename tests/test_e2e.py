@@ -11,9 +11,9 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from tomosar2height_tpu.config import compose
-from tomosar2height_tpu.config.compose import default_conf_dir
-from tomosar2height_tpu.data import build_dataset
+from tomosar2height_jax.config import compose
+from tomosar2height_jax.config.compose import default_conf_dir
+from tomosar2height_jax.data import build_dataset
 
 
 def _overrides(root):
@@ -95,7 +95,7 @@ class TestEndToEnd:
         assert any(t.endswith(".tiff") for t in tiffs)
 
     def test_generated_dsm_georeferenced(self, trained):
-        from tomosar2height_tpu.geo import RasterReader
+        from tomosar2height_jax.geo import RasterReader
 
         root, ov, n_iter, best = trained
         run = f"{root}/outputs/TomoSAR2Height-synthetic"

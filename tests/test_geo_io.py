@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from tomosar2height_tpu.geo import RasterData, RasterReader, RasterWriter
-from tomosar2height_tpu.geo.cloud import load_pc, save_las, save_pc_to_ply, load_ply, load_las_as_numpy
-from tomosar2height_tpu.geo.tiff import read_tiff, write_tiff
+from tomosar2height_jax.geo import RasterData, RasterReader, RasterWriter
+from tomosar2height_jax.geo.cloud import load_pc, save_las, save_pc_to_ply, load_ply, load_las_as_numpy
+from tomosar2height_jax.geo.tiff import read_tiff, write_tiff
 
 
 class TestTiffCodec:
@@ -86,7 +86,7 @@ class TestTiffCodec:
         Shrinks the module's offset ceiling so a small array stands in for a
         >4 GB one (allocating 4 GB in the test is not an option).
         """
-        import tomosar2height_tpu.geo.tiff as tiff_mod
+        import tomosar2height_jax.geo.tiff as tiff_mod
 
         data = np.arange(64 * 64, dtype=np.float32).reshape(64, 64)  # 16 KiB
         monkeypatch.setattr(tiff_mod, "_CLASSIC_OFFSET_LIMIT", 1 << 10)

@@ -3,7 +3,7 @@ import math
 import numpy as np
 import pytest
 
-from tomosar2height_tpu.geo import (
+from tomosar2height_jax.geo import (
     Affine,
     apply_transform,
     invert_transform,

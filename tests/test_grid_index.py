@@ -4,7 +4,7 @@ patch sampler switched to it for the serving loader's hot path)."""
 import numpy as np
 import pytest
 
-from tomosar2height_tpu.geo.crop import GridIndex2D, crop_pc_2d, crop_pc_2d_index
+from tomosar2height_jax.geo.crop import GridIndex2D, crop_pc_2d, crop_pc_2d_index
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

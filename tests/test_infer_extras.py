@@ -8,9 +8,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
-from tomosar2height_tpu.geo import RasterData, RasterReader, RasterWriter
-from tomosar2height_tpu.infer.baselines import interpolate_ndsm, max_z_per_pixel
-from tomosar2height_tpu.infer.instance import (
+from tomosar2height_jax.geo import RasterData, RasterReader, RasterWriter
+from tomosar2height_jax.infer.baselines import interpolate_ndsm, max_z_per_pixel
+from tomosar2height_jax.infer.instance import (
     buildingwise_errors,
     label_buildings,
     median_height_per_building,

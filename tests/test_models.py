@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tomosar2height_tpu.models import (
+from tomosar2height_jax.models import (
     AltoUNet,
     LocalPoolPointnet,
     PixelwiseDecoder,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from tomosar2height_tpu import native
-from tomosar2height_tpu.geo.cloud import save_las
-from tomosar2height_tpu.geo.transform import apply_transform
+from tomosar2height_jax import native
+from tomosar2height_jax.geo.cloud import save_las
+from tomosar2height_jax.geo.transform import apply_transform
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 
@@ -65,7 +65,7 @@ class TestLas:
 
 class TestBucket:
     def test_cells_and_order(self, rng):
-        from tomosar2height_tpu.ops.scatter import cell_index
+        from tomosar2height_jax.ops.scatter import cell_index
         import jax.numpy as jnp
 
         pts = rng.uniform(0.01, 0.99, (10000, 2)).astype(np.float32)
@@ -79,7 +79,7 @@ class TestBucket:
 
 class TestMaxZGrid:
     def test_matches_numpy(self, rng):
-        from tomosar2height_tpu.infer.baselines import max_z_per_pixel
+        from tomosar2height_jax.infer.baselines import max_z_per_pixel
 
         pts = rng.uniform([0, 0, 0], [32, 16, 50], (5000, 3))
         grid = native.max_z_grid(pts, [0, 0], [32, 16], [1, 1])
@@ -133,48 +133,3 @@ class TestBlend:
         np.testing.assert_allclose(dsm_b, dsm_s, atol=1e-12)
         np.testing.assert_allclose(wgt_b, wgt_s, atol=1e-12)
 
-
-class TestMortonAlign:
-    @pytest.mark.parametrize("n,reso,tile_cells,frac", [
-        (16384, 256, 1024, 1.0),   # flagship serving shape, all valid
-        (16384, 256, 256, 0.7),    # round-2 per-op tile size
-        (5000, 128, 1024, 0.9),    # non-chunk-multiple n, coarser plane
-        (100, 256, 1024, 0.0),     # all points invalid
-        (8192, 256, 1024, 0.5),    # half-masked
-    ])
-    def test_bit_identical_to_numpy(self, rng, n, reso, tile_cells, frac):
-        """C++ aligned layout == the numpy composition, bit for bit (points,
-        mask, cells, tile_offsets) — including stable within-cell order and
-        out-of-range coordinate clipping."""
-        from tomosar2height_tpu.ops import sorted_scatter as ss
-
-        if not native.available() or native.morton_align(
-                np.zeros((1, 3), np.float32), np.zeros(1, bool), 4, 1, 4,
-                ss.aligned_bucket_size(1, 4, 1, 4), 0) is None:
-            pytest.skip("native morton_align unavailable")
-        pts = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
-        mask = rng.uniform(size=n) < frac
-        npad = ss.aligned_bucket_size(n, reso, 128, tile_cells)
-        nat = native.morton_align(pts, mask, reso, 128, tile_cells, npad,
-                                  int(ss.PAD_CELL_SENTINEL))
-        # numpy reference: the original composition (native dispatch bypassed)
-        order, code_sorted, offsets = ss.host_morton_bucket(pts, mask, reso)
-        ntiles = (reso * reso) // tile_cells
-        tile_off = offsets[::tile_cells].astype(np.int64)
-        counts = np.diff(tile_off)
-        padded = ((counts + 127) // 128) * 128
-        astarts = np.zeros(ntiles + 1, np.int64)
-        np.cumsum(padded, out=astarts[1:])
-        src_valid = int(tile_off[-1])
-        tos = np.searchsorted(tile_off, np.arange(src_valid), side="right") - 1
-        dst = np.arange(src_valid) + (astarts[:-1] - tile_off[:-1])[tos]
-        ref_pts = np.full((npad, 3), 0.5, np.float32)
-        ref_mask = np.zeros(npad, bool)
-        ref_cells = np.full(npad, ss.PAD_CELL_SENTINEL, np.int32)
-        ref_pts[dst] = pts[order[:src_valid]]
-        ref_mask[dst] = True
-        ref_cells[dst] = code_sorted[:src_valid]
-        assert np.array_equal(nat["points"], ref_pts)
-        assert np.array_equal(nat["mask"], ref_mask)
-        assert np.array_equal(nat["cells"], ref_cells)
-        assert np.array_equal(nat["tile_offsets"], astarts.astype(np.int32))

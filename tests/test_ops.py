@@ -8,7 +8,7 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 import torch.nn.functional as F  # noqa: E402
 
-from tomosar2height_tpu.ops import (  # noqa: E402
+from tomosar2height_jax.ops import (  # noqa: E402
     cell_index,
     segment_mean,
     segment_max,
@@ -170,7 +170,7 @@ class TestResize:
     def test_cubic_vs_torch_bicubic(self, rng, hw):
         """resize_cubic == F.interpolate(mode='bicubic', align_corners=True)
         (the hourglass upsample, reference hourglass.py:126)."""
-        from tomosar2height_tpu.ops.resize import resize_cubic
+        from tomosar2height_jax.ops.resize import resize_cubic
 
         b, h, w, c = 2, 8, 8, 3
         x = rng.normal(size=(b, h, w, c)).astype(np.float32)

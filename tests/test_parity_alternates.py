@@ -1,4 +1,4 @@
-"""Torch parity for the config-selectable alternates (VERDICT r02 item 4).
+"""Torch parity for the config-selectable alternates.
 
 The default path (pointnet_local_pool + ALTO + conv decoder) is pinned in
 test_reference_parity.py; these tests port-and-compare the alternates the
@@ -33,7 +33,7 @@ from test_reference_parity import (  # noqa: E402
     port_torch_to_flax,
     reference,  # noqa: F401  (fixture re-export)
 )
-from tomosar2height_tpu.models import TomoSAR2Height  # noqa: E402
+from tomosar2height_jax.models import TomoSAR2Height  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("reference")
 
@@ -116,7 +116,7 @@ class TestHourglassParity:
     def test_hgfilter_matches_torch(self, reference, rng):
         from tomosar2height.encoder.hourglass import HGFilter as RefHG
 
-        from tomosar2height_tpu.models.hourglass import HGFilter
+        from tomosar2height_jax.models.hourglass import HGFilter
 
         torch.manual_seed(0)
         ref = RefHG(in_channel=3, feature_dim=16, num_hourglass=2,
@@ -176,7 +176,7 @@ class TestPointNetPlusPlusModuloNorm:
     def test_set_abstraction(self, reference, rng):
         from tomosar2height.encoder.pointnetpp import PointNetSetAbstraction
 
-        from tomosar2height_tpu.models.pointnetpp import SetAbstraction
+        from tomosar2height_jax.models.pointnetpp import SetAbstraction
 
         torch.manual_seed(0)
         ref = PointNetSetAbstraction(npoint=64, radius=0.2, nsample=16,
@@ -211,7 +211,7 @@ class TestPointNetPlusPlusModuloNorm:
     def test_feature_propagation(self, reference, rng):
         from tomosar2height.encoder.pointnetpp import PointNetFeaturePropagation
 
-        from tomosar2height_tpu.models.pointnetpp import FeaturePropagation
+        from tomosar2height_jax.models.pointnetpp import FeaturePropagation
 
         torch.manual_seed(0)
         ref = PointNetFeaturePropagation(in_channel=8 + 4, mlp=[16, 8])

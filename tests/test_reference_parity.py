@@ -1,4 +1,4 @@
-"""Whole-model numerical parity vs the torch reference (VERDICT r1 #2).
+"""Whole-model numerical parity vs the torch reference.
 
 Ports Xavier-initialized weights from the reference's torch modules
 (/root/reference/tomosar2height/model.py:54-67) into the flax tree, then
@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tomosar2height_tpu.models import TomoSAR2Height  # noqa: E402
+from tomosar2height_jax.models import TomoSAR2Height  # noqa: E402
 
 REFERENCE_ROOT = "/root/reference"
 
@@ -154,11 +154,11 @@ def _flax_model(use_cloud, use_image, use_footprint):
 
 
 # --- torch state_dict -> flax param tree ------------------------------------------
-# The mapping machinery lives in the package (tomosar2height_tpu/utils/
+# The mapping machinery lives in the package (tomosar2height_jax/utils/
 # torch_port.py) so scripts/port_torch_checkpoint.py can convert real
 # reference checkpoints; this harness pins it numerically.
 
-from tomosar2height_tpu.utils.torch_port import (  # noqa: E402
+from tomosar2height_jax.utils.torch_port import (  # noqa: E402
     flatten_tree as _flatten,
     port_torch_grads,
     port_torch_to_flax,
@@ -223,9 +223,8 @@ class TestReferenceParity:
         assert float(np.abs(pa_t).max()) > 1e-3
 
     def test_grad_parity_default_path(self, reference, rng):
-        """d(loss)/d(params) matches torch autograd on the default path
-        (VERDICT r02 item 4: training-equivalence previously rested on
-        XLA-vs-XLA checks only). Loss = L1 to a fixed target, the reference
+        """d(loss)/d(params) matches torch autograd on the default path.
+        Loss = L1 to a fixed target, the reference
         training loss (trainer.py:61-70, footprint off)."""
         torch.manual_seed(0)
         ref = reference.TomoSAR2Height(_ref_cfg(True, False, False))
@@ -273,7 +272,7 @@ class TestReferenceParity:
 
         import torch
 
-        from tomosar2height_tpu.train import CheckpointIO
+        from tomosar2height_jax.train import CheckpointIO
 
         sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                         "scripts"))
@@ -334,11 +333,11 @@ class TestReferenceParity:
                    for k in missing), missing
 
     def test_training_dynamics_short(self, reference, tmp_path):
-        """Short pin of scripts/parity_training_dynamics.py (VERDICT r03 #2):
+        """Short pin of scripts/parity_training_dynamics.py:
         both stacks run AdamW + CyclicLR + summed accumulation from identical
         ported init weights over an identical patch stream; the loss
         trajectories must agree within the torch-vs-perturbed-torch chaos
-        floor. The full 100-step evidence run is recorded in RESULTS.md."""
+        floor. scripts/parity_training_dynamics.py runs the full 100 steps."""
         import json
         import os
 

@@ -1,4 +1,4 @@
-"""Bit-consistent kill-and-resume (VERDICT r03 item 4).
+"""Bit-consistent kill-and-resume.
 
 With ``training.lock_seed`` the train loader runs det_stream: every batch is a
 pure function of (seed, epoch, batch index) and checkpoints record the stream
@@ -18,9 +18,9 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from tomosar2height_tpu.config import compose
-from tomosar2height_tpu.config.compose import default_conf_dir
-from tomosar2height_tpu.data import build_dataset
+from tomosar2height_jax.config import compose
+from tomosar2height_jax.config.compose import default_conf_dir
+from tomosar2height_jax.data import build_dataset
 
 
 def _overrides(root, out_dir, max_iteration):
@@ -127,7 +127,7 @@ class TestResumeBitexact:
             np.testing.assert_array_equal(a, c)
 
     def test_stream_pos_in_checkpoint(self, city):
-        from tomosar2height_tpu.train.checkpoint import CheckpointIO
+        from tomosar2height_jax.train.checkpoint import CheckpointIO
 
         root = city
         ckpt = f"{root}/outputs_b/TomoSAR2Height-synthetic/check_points/model_1.ckpt"

@@ -16,7 +16,7 @@ class TestQuadGridSample:
     def test_exact_edges_match_four_gather_form(self):
         """Coords at/beyond the borders: the rolled (wrapped) corners must
         contribute exactly zero weight."""
-        from tomosar2height_tpu.ops.sampling import grid_sample_2d
+        from tomosar2height_jax.ops.sampling import grid_sample_2d
 
         rng = np.random.default_rng(0)
         plane = jnp.asarray(rng.normal(size=(1, 8, 8, 4)).astype(np.float32))
@@ -46,7 +46,7 @@ class TestQuadGridSample:
 
 class TestCountCachedSegmentMean:
     def test_precomputed_counts_identical(self):
-        from tomosar2height_tpu.ops.scatter import segment_counts, segment_mean
+        from tomosar2height_jax.ops.scatter import segment_counts, segment_mean
 
         rng = np.random.default_rng(1)
         vals = jnp.asarray(rng.normal(size=(2, 500, 8)).astype(np.float32))
@@ -60,9 +60,7 @@ class TestCountCachedSegmentMean:
 
 class TestConcatFreeDecoderHead:
     def test_conv1x1split_equals_conv_on_concat(self):
-        import flax.linen as nn
-
-        from tomosar2height_tpu.models.decoder import Conv1x1Split
+        from tomosar2height_jax.models.decoder import Conv1x1Split
 
         rng = np.random.default_rng(2)
         parts = [jnp.asarray(rng.normal(size=(1, 6, 6, c)).astype(np.float32))
@@ -89,12 +87,12 @@ class TestGeneratorPipelineDepth:
         sys.path.insert(0, "scripts")
         import make_synthetic_city as msc
 
-        from tomosar2height_tpu.config import compose
-        from tomosar2height_tpu.config.compose import default_conf_dir
-        from tomosar2height_tpu.data import PatchLoader, TomoSARDataset, build_dataset
-        from tomosar2height_tpu.geo import RasterReader
-        from tomosar2height_tpu.infer import DSMGenerator
-        from tomosar2height_tpu.models import build_model
+        from tomosar2height_jax.config import compose
+        from tomosar2height_jax.config.compose import default_conf_dir
+        from tomosar2height_jax.data import PatchLoader, TomoSARDataset, build_dataset
+        from tomosar2height_jax.geo import RasterReader
+        from tomosar2height_jax.infer import DSMGenerator
+        from tomosar2height_jax.models import build_model
 
         root = str(tmp_path)
         msc.main(root, seed=0, density=0.05)

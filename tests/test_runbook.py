@@ -1,4 +1,4 @@
-"""CI-style exercise of the real-data parity runbook (VERDICT r04 item 8).
+"""CI-style exercise of the real-data parity runbook.
 
 Berlin/Munich data cannot mount in this environment, so the BASELINE.md
 gate stays open — but the day it mounts, `scripts/runbook_real_data.py`

@@ -8,7 +8,7 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
-from tomosar2height_tpu.geo.cloud import load_pc, save_las
+from tomosar2height_jax.geo.cloud import load_pc, save_las
 
 
 class TestExtractLas:

@@ -1,5 +1,5 @@
 """Multi-chip (data-parallel) inference: patch-sharded DSM generation must
-reproduce the single-device raster exactly (SURVEY.md §2.3(b); VERDICT r1 #3).
+reproduce the single-device raster exactly (SURVEY.md §2.3(b)).
 
 Runs on the virtual 8-device CPU mesh from conftest.py.
 """
@@ -14,12 +14,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
 import jax
 
-from tomosar2height_tpu.config import compose
-from tomosar2height_tpu.config.compose import default_conf_dir
-from tomosar2height_tpu.data import PatchLoader, TomoSARDataset, build_dataset
-from tomosar2height_tpu.infer import DSMGenerator
-from tomosar2height_tpu.models import TomoSAR2Height
-from tomosar2height_tpu.parallel import make_mesh
+from tomosar2height_jax.config import compose
+from tomosar2height_jax.config.compose import default_conf_dir
+from tomosar2height_jax.data import PatchLoader, TomoSARDataset, build_dataset
+from tomosar2height_jax.infer import DSMGenerator
+from tomosar2height_jax.models import TomoSAR2Height
+from tomosar2height_jax.parallel import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -240,7 +240,7 @@ class TestShardedInference:
         np.testing.assert_allclose(sharded, host_raster, atol=2e-3, rtol=1e-4)
 
     def test_fusion_sharded_matches_single(self, city, tmp_path):
-        """Cloud+image fusion under the 8-device mesh (VERDICT r04 item 2):
+        """Cloud+image fusion under the 8-device mesh:
         sharded u8 image crops — host blend AND device blend — must
         reproduce the single-device f32-wire host-blend raster. Pins the
         paper's headline config's multi-device correctness (the other
@@ -314,7 +314,7 @@ class TestBandPlan:
         """The banded-early-fetch plan's invariant: no batch AFTER a band's
         last-touch index writes rows into that band (otherwise a band would
         be fetched before its content is final)."""
-        from tomosar2height_tpu.geo.raster import RasterData
+        from tomosar2height_jax.geo.raster import RasterData
 
         cfg, root = city
         ds = TomoSARDataset("vis", cfg["dataset"])

@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tomosar2height_tpu.models import LocalPoolPointnet, TomoSAR2Height
-from tomosar2height_tpu.ops.sorted_scatter import host_morton_bucket
+from tomosar2height_jax.models import LocalPoolPointnet, TomoSAR2Height
+from tomosar2height_jax.ops.sorted_scatter import host_morton_bucket
 
 
 def _sorted_inputs(rng, b=2, n=512, n_valid=450, reso=32):
@@ -72,7 +72,7 @@ class TestSortedModelParity:
         np.testing.assert_allclose(np.asarray(pa_s), np.asarray(pa_u), atol=2e-3)
 
     def test_loader_emits_buckets(self, rng):
-        from tomosar2height_tpu.data.pipeline import PatchLoader
+        from tomosar2height_jax.data.pipeline import PatchLoader
 
         class FakeDs:
             def __len__(self):

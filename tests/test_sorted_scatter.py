@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tomosar2height_tpu.ops.scatter import cell_index, pool_local_max, scatter_mean_to_plane
-from tomosar2height_tpu.ops.sorted_scatter import (
+from tomosar2height_jax.ops.scatter import cell_index, pool_local_max, scatter_mean_to_plane
+from tomosar2height_jax.ops.sorted_scatter import (
     coarsen_offsets,
     gather_cells_sorted,
     host_morton_bucket,

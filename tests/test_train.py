@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from tomosar2height_tpu.infer.generator import linear_blend_weight
-from tomosar2height_tpu.train.checkpoint import CheckpointIO
-from tomosar2height_tpu.train.schedule import (
+from tomosar2height_jax.infer.generator import linear_blend_weight
+from tomosar2height_jax.train.checkpoint import CheckpointIO
+from tomosar2height_jax.train.schedule import (
     CosineAnnealingLR,
     CosineAnnealingWarmRestarts,
     CyclicLR,
@@ -187,7 +187,7 @@ class TestMetricLoggerWatch:
     def test_watch_emits_param_norms(self, tmp_path):
         import json
 
-        from tomosar2height_tpu.utils import MetricLogger
+        from tomosar2height_jax.utils import MetricLogger
 
         params = {"params": {"enc": {"w": np.ones((2, 2), np.float32)},
                              "dec": {"b": np.full((4,), 3.0, np.float32)}}}
@@ -208,7 +208,7 @@ class TestMetricLoggerWatch:
         — the logger consumes scalars and never touches the param tree."""
         import json
 
-        from tomosar2height_tpu.utils import MetricLogger
+        from tomosar2height_jax.utils import MetricLogger
 
         calls = []
 
